@@ -8,8 +8,7 @@ Usage: rgbd_tum.py <settings.yaml> <sequence_dir> [associations.txt] [--auto]
 
 --auto runs the autonomous on-device tracker (pipeline.auto.AutoTracker):
 the whole per-frame state machine incl. keyframe maintenance and loop
-closing executes on device with zero per-frame host synchronization —
-the recommended mode on remote-attached TPUs (~2x the host-driven rate).
+closing executes on device with zero per-frame host synchronization.
 Per-frame poses are then not printed during the run; the trajectory is
 read back once at the end.
 """

@@ -4,7 +4,7 @@
 // The reference's drivers decode every frame synchronously on the tracking
 // thread (reference: Examples/Monocular/mono_tum.cc:87-96 cv::imread in the
 // main loop). Here decode runs on a background thread pool and the tracker
-// pops ready frames in order, so dataset IO overlaps TPU compute — the
+// pops ready frames in order, so dataset IO overlaps device compute — the
 // native runtime half of the pipeline (SURVEY.md §2.5 P1), C++ like the
 // reference's, with a C ABI consumed via ctypes.
 //

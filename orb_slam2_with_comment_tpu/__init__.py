@@ -1,16 +1,15 @@
-"""orb_slam2_with_comment_tpu — a TPU-native sparse visual SLAM engine.
+"""orb_slam2_with_comment_tpu — a sparse visual SLAM engine in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of ORB-SLAM2
+A from-scratch JAX/XLA re-design of the capabilities of ORB-SLAM2
 (reference: AHzZ123/orb_slam2_with_comment, annotated fork of raulmur/ORB_SLAM2):
 monocular / stereo / RGB-D tracking, local mapping, loop closing, relocalization,
 and trajectory export — built SoA-first with fixed-capacity masked arrays,
-batched Levenberg–Marquardt + Schur bundle adjustment, vmapped RANSAC, and
-Pallas kernels for the hot feature/matching paths.
+batched Levenberg–Marquardt + Schur bundle adjustment and vmapped RANSAC.
 
-Layer map (mirrors SURVEY.md §1, re-designed TPU-first):
+Layer map (mirrors SURVEY.md §1, re-designed accelerator-first):
   geometry/   SE3/Sim3 Lie ops, triangulation           (ref: Converter, g2o types)
   models/     camera projection models (pinhole/stereo)  (ref: Frame projection code)
-  ops/        Pallas + XLA kernels: FAST, BRIEF, Hamming (ref: ORBextractor, ORBmatcher)
+  ops/        XLA kernels: FAST, BRIEF, Hamming          (ref: ORBextractor, ORBmatcher)
   frontend/   ORB extraction pipeline, stereo depth      (ref: ORBextractor, Frame)
   matching/   data-association search modes              (ref: ORBmatcher)
   optim/      batched LM / Schur BA / pose graph         (ref: Optimizer + g2o)

@@ -36,8 +36,8 @@ def save_auto_state(path: str, tracker) -> None:
     """Checkpoint an AutoTracker (pipeline.auto): the entire device-side
     AutoState pytree (map + pose/velocity/flags + trajectory ring +
     loop-closing carry) in one dump — the functional-state design makes
-    resume trivial. NOTE: this is a device->host readback; on a
-    remote-attached TPU do it at session boundaries only (pipeline/auto.py
+    resume trivial. NOTE: this is a device->host readback that waits for
+    the device: do it at session boundaries (pipeline/auto.py
     docstring)."""
     flat, _ = _flatten_state(tracker.state)
     arrays = {k: np.asarray(v) for k, v in flat.items()}

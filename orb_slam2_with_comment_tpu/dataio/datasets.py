@@ -7,28 +7,56 @@ plain-Python iterators yielding (timestamp, grayscale float32 [H,W]) —
 or (ts, rgb, depth) for RGB-D — ready for System.track_*.
 
 Images load via PIL (grayscale conversion matches the reference's
-cvtColor RGB->GRAY weights).
+cvtColor RGB->GRAY weights) or, without PIL, through the native PNG
+decoder (dataio.native_loader).
 """
 from __future__ import annotations
 
 import os
+import struct
 
 import numpy as np
 
 
-def _imread_gray(path: str) -> np.ndarray:
-    from PIL import Image
+def _png_size(path: str) -> tuple[int, int]:
+    """(height, width) from a PNG's IHDR chunk."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG file")
+    w, h = struct.unpack(">II", head[16:24])
+    return h, w
+
+
+def _imread(path: str, is_depth: bool, factor: float) -> np.ndarray:
+    try:
+        from PIL import Image
+    except ImportError:
+        from . import native_loader
+        out = None
+        if native_loader.get_lib() is not None:
+            out = native_loader.decode_gray(path, *_png_size(path),
+                                            is_depth, factor)
+        if out is None:
+            raise RuntimeError(
+                f"cannot read {path}: the dataset loaders need Pillow or "
+                "the native PNG loader (native/frame_loader.cc, built with "
+                "g++ and libpng); neither is available")
+        return out
     im = Image.open(path)
+    if is_depth:
+        return np.asarray(im, np.float32) / factor
     if im.mode not in ("L", "I;16", "I"):
         im = im.convert("L")  # ITU-R 601-2 luma, same as cvtColor gray
     return np.asarray(im, np.float32)
 
 
+def _imread_gray(path: str) -> np.ndarray:
+    return _imread(path, False, 1.0)
+
+
 def _imread_depth(path: str, factor: float) -> np.ndarray:
-    from PIL import Image
-    im = Image.open(path)
-    d = np.asarray(im, np.float32)
-    return d / factor
+    return _imread(path, True, factor)
 
 
 # -- TUM RGB-D --------------------------------------------------------------
@@ -110,8 +138,7 @@ class TumRgbdDataset:
         if native_loader.get_lib() is None or not self.items:
             yield from self
             return
-        first = _imread_gray(os.path.join(self.seq_dir, self.items[0][1]))
-        h, w = first.shape
+        h, w = _png_size(os.path.join(self.seq_dir, self.items[0][1]))
         rgb_paths = [os.path.join(self.seq_dir, r) for _, r, _ in self.items]
         dep_paths = [os.path.join(self.seq_dir, d) for _, _, d in self.items]
         rgb_l = native_loader.NativeSequenceLoader(

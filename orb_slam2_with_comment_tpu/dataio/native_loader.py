@@ -1,8 +1,9 @@
 """ctypes bindings for the native C++ frame loader (native/frame_loader.cc).
 
-Compiles the shared library on first use (g++ + libpng, both baked into
-the image) and caches it under ~/.cache/orb_tpu_native. Falls back to the
-PIL path in dataio.datasets when the toolchain or libpng is unavailable.
+Compiles the shared library on first use (g++ + libpng) into
+``.native_build/`` at the root of the checkout (listed in .gitignore).
+dataio.datasets reads frames through PIL when the toolchain or libpng is
+unavailable.
 """
 from __future__ import annotations
 
@@ -15,23 +16,27 @@ import numpy as np
 
 _LOCK = threading.Lock()
 _LIB = None
-_SRC = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), "native", "frame_loader.cc")
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+_SRC = os.path.join(_ROOT, "native", "frame_loader.cc")
+_BUILD = os.path.join(_ROOT, ".native_build")
 
 
 def _build() -> str | None:
-    cache = os.path.expanduser(
-        os.environ.get("ORB_TPU_NATIVE_CACHE", "~/.cache/orb_tpu_native"))
-    os.makedirs(cache, exist_ok=True)
-    so = os.path.join(cache, "libframeloader.so")
+    os.makedirs(_BUILD, exist_ok=True)
+    so = os.path.join(_BUILD, "libframeloader.so")
     if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(_SRC):
         return so
+    # build under a private name, then rename: processes that build at the
+    # same time never load a half-written library
+    tmp = f"{so}.{os.getpid()}"
     cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-           _SRC, "-o", so, "-lpng", "-lpthread"]
+           _SRC, "-o", tmp, "-lpng", "-lpthread"]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
     except (subprocess.SubprocessError, FileNotFoundError):
         return None
+    os.replace(tmp, so)
     return so
 
 

@@ -3,7 +3,7 @@
 The reference reads its settings with cv::FileStorage (reference:
 System.cc:59-64, Tracking.cc:46-150). This loader accepts the exact same
 YAML files (TUM1.yaml, KITTI00-02.yaml, EuRoC.yaml, ...) so a user can
-point the TPU framework at their existing configs. Parsing is done with a
+point the engine at their existing configs. Parsing is done with a
 small self-contained reader for the cv::FileStorage dialect ("%YAML:1.0"
 header, `!!opencv-matrix` nodes) so no OpenCV dependency is required; if
 cv2 is present it is used as a cross-check in tests only.
@@ -154,7 +154,7 @@ def load_tracker_config(path: str, expected_frames: int | None = None,
         # init window matcher below its >=100-match gate. Fixed-shape SoA
         # rows cannot swap extractors mid-run, so monocular configs carry
         # the doubled budget for the whole run (a strict superset of the
-        # reference's feature set; steady-state cost is a few ms/frame).
+        # reference's feature set).
         n_features = 2 * s.n_features
     if k_max is None:
         if expected_frames is not None:

@@ -151,24 +151,31 @@ class SyntheticWorld:
             d_cam = np.asarray(dirs, np.float32)
             height, width = d_cam.shape[:2]
         d_world = d_cam @ R  # R^T applied to each ray
-        img = np.full((height, width), 25.0, np.float32)
+        # float64: the pillar planes' extents are float64 scalars, which
+        # promote their texture samples
+        img = np.full((height, width), 25.0, np.float64)
         depth = np.zeros((height, width), np.float32)
         best_t = np.full((height, width), np.inf, np.float32)
         for pl in self.planes:
             denom = d_world @ pl.n
             denom = np.where(np.abs(denom) < 1e-9, 1e-9, denom)
             tt = ((pl.p0 - C) @ pl.n) / denom  # camera-z of intersection
-            hit_p = C + tt[..., None] * d_world
-            rel = hit_p - pl.p0
+            # only rays in front of the nearest hit so far can land on this
+            # plane: intersect and texture those pixels alone
+            near = np.nonzero((tt > z_min) & (tt < best_t))
+            if near[0].size == 0:
+                continue
+            tn = tt[near]
+            rel = C + tn[:, None] * d_world[near] - pl.p0
             # rays nearly parallel to the plane produce huge/inf coords;
             # sanitize before sampling (they never pass the `ok` gate)
             a = np.nan_to_num(rel @ pl.ea, posinf=1e6, neginf=-1e6)
             b = np.nan_to_num(rel @ pl.eb, posinf=1e6, neginf=-1e6)
-            ok = (tt > z_min) & (tt < best_t) & (np.abs(a) < pl.half_a) & (np.abs(b) < pl.half_b)
-            val = pl.sample(a, b)
-            img = np.where(ok, val, img)
-            depth = np.where(ok, tt, depth)
-            best_t = np.where(ok, tt, best_t)
+            ok = (np.abs(a) < pl.half_a) & (np.abs(b) < pl.half_b)
+            hit = (near[0][ok], near[1][ok])
+            img[hit] = pl.sample(a[ok], b[ok])
+            depth[hit] = tn[ok]
+            best_t[hit] = tn[ok]
         if self.depth_noise > 0:
             noise = self.rng.randn(height, width).astype(np.float32)
             depth = np.where(depth > 0, depth * (1 + self.depth_noise * noise), 0.0)

@@ -1,6 +1,6 @@
 """ORB feature extraction pipeline: pyramid -> FAST -> orientation -> BRIEF.
 
-TPU-native rebuild of ORBextractor::operator() (reference:
+JAX rebuild of ORBextractor::operator() (reference:
 ORBextractor.cc:1043-1105): 8-level 1.2x pyramid, per-level FAST with the
 20->7 per-cell fallback, spatial balancing, IC-angle orientation, 7x7
 sigma=2 Gaussian blur, rotated-BRIEF descriptors, and coordinate rescaling
@@ -106,9 +106,8 @@ class OrbExtractor:
             img_r.astype(jnp.float32), self.n_levels, self.scale_factor)
         # L/R extraction stays SEQUENTIAL inside one program (the
         # reference's two threads, Frame.cc:78-81, fuse into one XLA
-        # schedule): a vmap-over-pair variant was measured SLOWER (27.8 vs
-        # 38.5 fps end-to-end) — batched top-k/one-hot selections lower
-        # worse than two overlapping unbatched schedules
+        # schedule); a vmap-over-pair variant was slower on the engine's
+        # first accelerator and is not measured on a GPU
         feats_l = self._extract_from_pyramid(pyr_l)
         feats_r = self._extract_from_pyramid(pyr_r)
         sd = _stereo.match_stereo(
@@ -156,12 +155,9 @@ class OrbExtractor:
             score, budget, self.cell, self.per_cell, self.th_high, self.th_low)
         # ALL per-keypoint sampling (IC angle, subpixel parabola, BRIEF)
         # comes from one batched patch extraction expressed as one-hot
-        # matmuls — TPU has no hardware gather, so per-keypoint
-        # indexing ops each cost ~1 ms regardless of size (ops.patches).
+        # matmuls (ops.patches).
         # Integer-rounded blurred image: the reference samples BRIEF
-        # from a uint8 blurred image (OpenCV GaussianBlur on CV_8U);
-        # integers <= 255 are also exact under bf16 matmuls, so the
-        # descriptor GEMM stays bit-exact at TPU default precision.
+        # from a uint8 blurred image (OpenCV GaussianBlur on CV_8U).
         blurred = jnp.round(image.gaussian_blur(lvl_img))
         # Three patch extractions sized to what each consumer reads —
         # blurred at the full BRIEF radius (rotated-pair sampling), raw at
@@ -171,14 +167,18 @@ class OrbExtractor:
             blurred[None], yx, brief.BRIEF_RADIUS)[:, 0]
         raw31 = patch_ops.extract_patches(
             lvl_img[None], yx, orientation.HALF_PATCH)[:, 0]
-        mom = raw31.reshape(budget, -1) @ kmat
+        # HIGHEST: at default precision a GPU runs this f32 GEMM in TF32,
+        # which moves ~0.3% of angles by >1e-3 rad and flips ~2% of
+        # descriptors against the f32 result (rotated BRIEF offsets round
+        # to other pixels)
+        mom = jnp.matmul(raw31.reshape(budget, -1), kmat,
+                         precision=jax.lax.Precision.HIGHEST)
         ang = jnp.arctan2(mom[:, 1], mom[:, 0])
         # exact per-keypoint rotation (reference: computeOrbDescriptor
         # ORBextractor.cc:108-147). The 30-bin steered bank
         # (descriptors_from_patches) measurably loses 20-30% of
         # correct matches at mid-bin roll angles
-        # (tests/test_brief_quantization.py) and the exact batched
-        # patch sampling costs the same on TPU (~0.04 ms / 1000 kps).
+        # (tests/test_brief_quantization.py).
         desc = brief.descriptors_from_patches_exact(
             pat_b.reshape(budget, -1), ang)
         # Subpixel 1D parabola per axis on the score patch center

@@ -1,6 +1,6 @@
 """Stereo feature depth: rectified row-band descriptor match + SAD refine.
 
-TPU-native rebuild of Frame::ComputeStereoMatches (reference:
+JAX rebuild of Frame::ComputeStereoMatches (reference:
 src/Frame.cc:501-675). The reference loops left keypoints over a per-row
 candidate table; here the whole association is one masked dense Hamming
 matrix (row-band, octave-band and disparity-range masks), followed by a
@@ -36,10 +36,8 @@ def _sad_refine_block(pyr_l: jax.Array, pyr_r: jax.Array, inv_scale: float,
     """Subpixel correlation for one pyramid level's keypoint block.
 
     Patch reads are one-hot matmuls (ops.patches.extract_patches): the
-    earlier vmapped dynamic_slice lowered to one gather op per level per
-    side (~1 ms fixed cost each on TPU regardless of size) and dominated
-    the stereo front end; the GEMM formulation batches every keypoint's
-    window into one MXU contraction.
+    GEMM formulation batches every keypoint's window into one contraction
+    in place of one gather per level per side.
 
     Returns (refined right-u in level pixels, best SAD, ok): shift not at
     the search edge, |delta| <= 1 (reference Frame.cc:611-636).

@@ -1,7 +1,7 @@
 """SO(3)/SE(3) Lie-group operations, batched and jit-friendly.
 
 Poses are stored as (R, t): rotation matrices ``[..., 3, 3]`` and translations
-``[..., 3]`` — matrix form keeps compositions on the MXU and avoids quaternion
+``[..., 3]`` — matrix form keeps compositions as matmuls and avoids quaternion
 renormalization inside optimization loops. Updates use the se(3) exponential
 map with *left* multiplication ``T <- exp(xi) @ T``, matching the convention of
 the reference optimizer's vertex update (reference: g2o VertexSE3Expmap oplus,
@@ -154,7 +154,7 @@ def orthonormalize(R):
     retractions PRESERVE any non-orthonormality while the composition
     amplifies it ~2.4x per frame (exponential blow-up measured over ~15
     frames in float32). One Newton step per frame drives the error to
-    roundoff. Must run at HIGHEST precision: TPU bf16 matmuls would
+    roundoff. Must run at HIGHEST precision: TF32 or bf16 matmuls would
     re-inject ~1e-3 error each application."""
     hi = jax.lax.Precision.HIGHEST
     rtr = jnp.matmul(jnp.swapaxes(R, -1, -2), R, precision=hi)

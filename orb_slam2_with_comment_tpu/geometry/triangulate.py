@@ -27,7 +27,7 @@ def triangulate_dlt(P1: jax.Array, P2: jax.Array, x1: jax.Array, x2: jax.Array) 
     ]
     A = jnp.stack(rows, axis=-2)  # [..., 4, 4]
     # Smallest right singular vector of A == smallest eigenvector of A^T A.
-    # 4x4 symmetric eigendecomposition is cheap and batches well on TPU.
+    # 4x4 symmetric eigendecomposition is cheap and batches well.
     AtA = jnp.swapaxes(A, -1, -2) @ A
     _, V = jnp.linalg.eigh(AtA)  # ascending eigenvalues
     X = V[..., :, 0]

@@ -1,4 +1,4 @@
-"""Versioned SoA map state — the TPU-native Map/KeyFrame/MapPoint model.
+"""Versioned SoA map state — the fixed-shape Map/KeyFrame/MapPoint model.
 
 Replaces the reference's pointer-graph map (reference: src/Map.cc,
 src/KeyFrame.cc, src/MapPoint.cc) with fixed-capacity structure-of-arrays
@@ -204,8 +204,8 @@ def add_observation(m: MapState, lm_idx, kf_idx, feat_idx, mask):
     n_used = jnp.sum((rows >= 0).astype(jnp.int32), axis=1)
     # Slots are append-only (free slots form a suffix), so intra-batch
     # duplicates of the same landmark get consecutive slots via their rank
-    # within the batch (dense O(B^2) count — sort+searchsorted+scatter
-    # cost ~6 ms on TPU, the [B,B] comparison ~0.05 ms; ops.prims).
+    # within the batch (dense O(B^2) count in place of
+    # sort+searchsorted+scatter; ops.prims).
     from ..ops.prims import rank_in_group
     rank = rank_in_group(lm_idx, mask)
     slot = n_used + rank
@@ -359,7 +359,7 @@ def compact_keyframes(m: MapState) -> MapState:
 def grow_map(m: MapState, k_max: int | None = None,
              l_max: int | None = None) -> MapState:
     """Re-pad the map to larger keyframe / landmark capacity (host-side,
-    between frames). The TPU-native answer to the reference's unbounded
+    between frames). The fixed-shape answer to the reference's unbounded
     pointer-graph map (Map.cc:32-44): geometric capacity doubling — each
     growth recompiles the jitted pipeline once for the new shapes, so a
     sequence of any length pays O(log K) recompiles total.

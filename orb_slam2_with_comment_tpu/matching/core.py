@@ -1,9 +1,9 @@
 """Matching primitives shared by every search mode.
 
-TPU-native rebuild of the machinery inside ORBmatcher (reference:
+JAX rebuild of the machinery inside ORBmatcher (reference:
 src/ORBmatcher.cc): instead of per-feature candidate loops over a 64x48
 cell hash (Frame::GetFeaturesInArea), every mode is a masked dense
-[queries x features] Hamming problem — one XOR/popcount sweep (VPU), a
+[queries x features] Hamming problem — one distance-matrix sweep, a
 candidate mask built from vectorized window/level/chi2 gates, then masked
 argmin + ratio test + rotation-histogram consistency. Constants follow the
 reference exactly (ORBmatcher.cc:37-39, 1854-1895).
@@ -28,9 +28,8 @@ def masked_best_two(dist: jax.Array, mask: jax.Array):
     Invalid rows get BIG distances.
     """
     d = jnp.where(mask, dist, BIG)
-    # Two min/argmin reductions instead of lax.top_k(k=2): top_k lowers to
-    # a sorting network on TPU (~1.5 ms at 1000x1000); min reductions are
-    # ~50x faster for the same result.
+    # Two min/argmin reductions instead of lax.top_k(k=2): plain
+    # reductions, no sort, for the same result.
     idx = jnp.argmin(d, axis=1).astype(jnp.int32)
     best = jnp.take_along_axis(d, idx[:, None], axis=1)[:, 0]
     cols = jnp.arange(d.shape[1], dtype=jnp.int32)

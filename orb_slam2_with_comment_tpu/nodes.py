@@ -1,6 +1,6 @@
 """Streaming "node" layer: callback-driven live ingestion.
 
-TPU-native rebuild of the reference's ROS wrappers (reference:
+JAX rebuild of the reference's ROS wrappers (reference:
 Examples/ROS/ORB_SLAM2/src/ros_mono.cc:26-60, ros_stereo.cc, ros_rgbd.cc):
 there, each node subscribes to image topics, pairs stereo/RGB-D messages
 with an approximate-time synchronizer, optionally rectifies the stereo

@@ -1,12 +1,12 @@
 """FAST-16 corner detection as dense vectorized maps.
 
-TPU-native rebuild of the per-cell FAST extraction in the reference
+JAX rebuild of the per-cell FAST extraction in the reference
 (reference: ORBextractor.cc:765-853 ComputeKeyPointsOctTree — cv::FAST at
 threshold 20 with per-30px-cell fallback to 7, then quadtree balancing at
 539-763). Instead of scalar pixel loops:
 
   - the corner *score map* is computed for the whole image at once from 16
-    shifted copies (VPU elementwise); the score is OpenCV's definition — the
+    shifted copies (elementwise); the score is OpenCV's definition — the
     largest threshold t for which a 9-contiguous arc stays all-brighter
     (or all-darker) than center +/- t — so "corner at t" == "score > t" and
     the 20 -> 7 fallback needs only ONE map;

@@ -1,6 +1,6 @@
 """Batched 256-bit Hamming distance (XOR + popcount).
 
-TPU-native rebuild of the reference's DescriptorDistance (reference:
+JAX rebuild of the reference's DescriptorDistance (reference:
 ORBmatcher.cc:1901-1917, the Stanford bit-twiddling popcount) generalized
 from a scalar pair to full distance matrices: descriptors are uint32[...,8],
 distances come from lax.population_count on the XOR — the building block for
@@ -23,43 +23,14 @@ def _distance_matrix_xla(d1: jax.Array, d2: jax.Array) -> jax.Array:
     return hamming_pair(d1[:, None, :], d2[None, :, :])
 
 
-def _bits_pm1(d: jax.Array) -> jax.Array:
-    """[N, 8] uint32 -> [N, 256] bf16 of +-1 (bit b -> 2b-1)."""
-    shifts = jnp.arange(32, dtype=jnp.uint32)
-    bits = (d[:, :, None] >> shifts[None, None, :]) & jnp.uint32(1)
-    bits = bits.reshape(d.shape[0], 256).astype(jnp.bfloat16)
-    return bits * 2 - 1
-
-
-@jax.jit
-def _distance_matrix_gemm(d1: jax.Array, d2: jax.Array) -> jax.Array:
-    """Hamming distance as a +-1 bit-GEMM on the MXU:
-
-        dot(a, b) = (256 - 2*hamming)  for a, b in {-1,+1}^256
-        => hamming = (256 - dot) / 2
-
-    Products are +-1 and the MXU accumulates in f32, so the result is
-    EXACT. One [N1,256]x[256,N2] matmul (~0.5 GFLOP at N=1000) replaces
-    the broadcast XOR+popcount whose [N1,N2,8] uint32 intermediate cost
-    ~4 ms of HBM traffic at N=1000 (measured; the tiled Pallas popcount
-    kernel was no faster — this op is bandwidth-bound, the MXU
-    formulation makes it compute-bound)."""
-    a = _bits_pm1(d1)
-    b = _bits_pm1(d2)
-    dot = jax.lax.dot_general(a, b, (((1,), (1,)), ((), ())),
-                              preferred_element_type=jnp.float32)
-    return ((256.0 - dot) * 0.5).astype(jnp.int32)
-
-
 def distance_matrix(d1: jax.Array, d2: jax.Array) -> jax.Array:
     """[N1, 8] x [N2, 8] uint32 -> [N1, N2] int32 Hamming distances.
 
-    On TPU this lowers to the exact +-1 bit-GEMM (MXU); elsewhere (CPU
-    tests, interpret-mode debugging) the XLA broadcast path is used.
-    Backend choice is made at trace time.
+    Broadcast XOR + popcount; XLA fuses it into the consumer's reduction.
+    On an H100 it measured faster than the exact ±1 bf16 bit-GEMM at
+    every matcher width tried except 1000x1000, where the GEMM won by
+    8 us per matrix (PERF.md).
     """
-    if jax.default_backend() == "tpu":
-        return _distance_matrix_gemm(d1, d2)
     return _distance_matrix_xla(d1, d2)
 
 

@@ -1,11 +1,11 @@
 """Image-level ops: pyramid construction, Gaussian blur, 2D convolution.
 
-TPU-native counterparts of the reference's OpenCV usage:
+JAX counterparts of the reference's OpenCV usage:
   - ORBextractor::ComputePyramid (reference: ORBextractor.cc:1107-1132),
     scale factor 1.2, 8 levels, bilinear resize.
   - GaussianBlur(7x7, sigma=2) before BRIEF (reference: ORBextractor.cc:1086).
-All convolutions go through lax.conv_general_dilated so XLA can map them
-onto the MXU; images are [H, W] float32 in [0, 255].
+Convolutions go through lax.conv_general_dilated; images are [H, W]
+float32 in [0, 255].
 """
 from __future__ import annotations
 
@@ -59,9 +59,9 @@ def gaussian_kernel1d(ksize: int = 7, sigma: float = 2.0) -> jax.Array:
 def gaussian_blur(img: jax.Array, ksize: int = 7, sigma: float = 2.0) -> jax.Array:
     """Separable Gaussian blur with replicate padding (matches cv2 BORDER_REFLECT_101
     closely enough for descriptor sampling)."""
-    # Unrolled shift-and-add separable filter: single-channel 2D convs
-    # lower poorly on TPU (~2.2 ms at 640x480); 2*ksize shifted
-    # multiply-adds on the VPU run the same filter in ~0.03 ms.
+    # Unrolled shift-and-add separable filter: 2*ksize shifted
+    # multiply-adds that XLA fuses into elementwise loops, in place of a
+    # single-channel 2D convolution.
     k = gaussian_kernel1d(ksize, sigma)
     r = ksize // 2
     h, w = img.shape

@@ -1,11 +1,11 @@
 """IC-angle keypoint orientation via whole-image moment maps.
 
-TPU-native rebuild of the reference's IC_Angle (reference:
+JAX rebuild of the reference's IC_Angle (reference:
 ORBextractor.cc:77-104): the intensity centroid angle over a radius-15
 circular patch whose row extents come from the umax table (ctor,
 ORBextractor.cc:472-506). Instead of per-keypoint pixel loops, the patch
 moments m10 = sum(x * I) and m01 = sum(y * I) are computed for EVERY pixel
-at once as two 31x31 convolutions (MXU-mappable), then gathered at keypoint
+at once as two 31x31 convolutions, then gathered at keypoint
 locations. atan2(m01, m10) matches cv::fastAtan2 semantics (radians here).
 """
 from __future__ import annotations
@@ -84,13 +84,12 @@ def angles_at(img: jax.Array, yx: jax.Array) -> jax.Array:
 @jax.jit
 def angles_at_patches(img: jax.Array, yx: jax.Array) -> jax.Array:
     """Orientation angles via per-keypoint 31x31 patch gathers + one
-    [N, 961] x [961, 2] matmul (MXU path).
+    [N, 961] x [961, 2] matmul.
 
     The whole-image moment maps (orientation_maps) are two 31x31
-    single-channel convolutions — with no channel dimension XLA lowers them
-    to ~1000 shifted multiply-adds on the VPU per level, which dominated
-    extractor time on TPU. Gathering only the N keypoint patches collapses
-    the work by ~300x and turns the reduction into a matrix multiply.
+    single-channel convolutions over every pixel; gathering only the N
+    keypoint patches does ~300x less work and turns the reduction into a
+    matrix multiply.
     """
     pad = jnp.pad(img, HALF_PATCH)
 
@@ -102,5 +101,5 @@ def angles_at_patches(img: jax.Array, yx: jax.Array) -> jax.Array:
     flat = patches.reshape(patches.shape[0], -1)
     kmat = jnp.stack([jnp.asarray(_K10).reshape(-1),
                       jnp.asarray(_K01).reshape(-1)], axis=1)  # [961, 2]
-    m = flat @ kmat
+    m = jnp.matmul(flat, kmat, precision=jax.lax.Precision.HIGHEST)
     return jnp.arctan2(m[:, 1], m[:, 0])

@@ -1,18 +1,16 @@
-"""Patch extraction and point sampling as one-hot matmuls (MXU path).
+"""Patch extraction and point sampling as one-hot matmuls.
 
-TPU has no hardware gather: XLA lowers `img[y, x]` style indexing to a
-serial loop or slow emulation (~1 ms per gather op measured on v5e
-regardless of size). Every per-keypoint sampling operation in the frontend
-is therefore expressed as two one-hot matrix multiplies instead:
+Every per-keypoint sampling operation in the frontend is expressed as two
+one-hot matrix multiplies instead of a gather (the engine was first built
+for an accelerator without a hardware gather; whether a direct gather is
+faster on a GPU is not measured yet):
 
     patch[n] = Ry[n] @ map @ Cx[n]^T
 
 where ``Ry``/``Cx`` are one-hot row/column selector matrices built with
 iota comparisons (pure elementwise work). The contraction over the image
-height runs as ONE dense GEMM on the MXU for all keypoints at once; the
-column contraction is a small batched GEMM. For the frontend's shapes
-(hundreds of keypoints, 31x31 patches, 640x480 maps) this is 10-100x
-faster than gather lowering.
+height runs as ONE dense GEMM for all keypoints at once; the column
+contraction is a small batched GEMM.
 
 This replaces the per-keypoint work in the reference's ORBextractor
 (reference: src/ORBextractor.cc:77-147 IC_Angle/computeOrbDescriptor read
@@ -55,9 +53,10 @@ def extract_patches(maps: jax.Array, yx: jax.Array, radius: int) -> jax.Array:
     p = 2 * radius + 1
     ry, cx = _row_col_onehot(yx, h, w, radius)
     # Row selection: ONE dense GEMM [N*P, H] @ [H, C*W]. Precision must be
-    # HIGHEST: the TPU default runs f32 GEMMs as bf16 passes, which rounds
-    # the selected values (one-hot selection must be exact — bf16-rounded
-    # intensities flip BRIEF comparison bits and break matching).
+    # HIGHEST: default precision may run f32 GEMMs in TF32 (GPU) or bf16
+    # passes, which round the selected values (one-hot selection must be
+    # exact — rounded intensities flip BRIEF comparison bits and break
+    # matching).
     hi = jax.lax.Precision.HIGHEST
     rows = jnp.matmul(ry.reshape(n * p, h),
                       maps.transpose(1, 0, 2).reshape(h, c * w),

@@ -1,10 +1,10 @@
-"""TPU-friendly replacements for slow XLA primitive lowerings.
+"""Substitutes for XLA primitives: top-k, cumsum, scatter and ranking
+recast as sort, matmul or dense comparison.
 
-Measured on v5e (remote-attached): ``lax.top_k`` ~3 ms even for tiny
-inputs, ``jnp.searchsorted`` ~4 ms, ``jnp.cumsum`` ~1.6 ms (sequential
-scan), 2-D scatter ~1.4 ms — while ``lax.sort`` on 24k elements is
-0.07 ms and small matmuls are ~0.01 ms. Everything here recasts the slow
-ops onto the fast ones (sort / matmul / associative_scan).
+They replaced ``lax.top_k``, ``jnp.cumsum``, ``jnp.searchsorted`` and
+scatters on the accelerator the engine was first built for, where those
+lowered to slow sequential code. Whether each still pays on a GPU against
+the plain primitive is not measured yet.
 """
 from __future__ import annotations
 
@@ -13,8 +13,7 @@ import jax.numpy as jnp
 
 
 def sort_top_k(v: jax.Array, k: int):
-    """Descending top-k along the last axis via ONE lax.sort (top_k's
-    dedicated lowering is ~40x slower for small/medium inputs).
+    """Descending top-k along the last axis via ONE lax.sort.
 
     Returns (values [..., k], indices [..., k]) like lax.top_k.
     """
@@ -26,8 +25,8 @@ def sort_top_k(v: jax.Array, k: int):
 
 
 def cumsum_tri(x: jax.Array) -> jax.Array:
-    """Inclusive 1-D cumsum as a triangular matmul (MXU) — jnp.cumsum
-    lowers to a serial scan on TPU. Use for n <= ~2048."""
+    """Inclusive 1-D cumsum as a triangular matmul (exact at HIGHEST for
+    integer counts below 2^24). Use for n <= ~2048."""
     n = x.shape[0]
     tri = jnp.tril(jnp.ones((n, n), jnp.float32))
     return jnp.matmul(tri, x.astype(jnp.float32),
@@ -74,7 +73,7 @@ def gather_mask_indices(mask: jax.Array, size: int):
 def onehot_set_rows(dst: jax.Array, idx: jax.Array, vals: jax.Array,
                     sel: jax.Array) -> jax.Array:
     """``dst.at[idx].set(vals)`` where ``sel`` masks active rows, as a
-    one-hot matmul (TPU scatter lowering costs ~1.4 ms per op).
+    one-hot matmul.
 
     dst: [L, C] float; idx: [N] int32 (UNIQUE among sel rows); vals:
     [N, C]; sel: [N] bool. Rows not addressed keep their value.

@@ -1,6 +1,6 @@
 """Sim(3) pose-graph (essential graph) optimization.
 
-TPU-native rebuild of the reference's ``Optimizer::OptimizeEssentialGraph``
+JAX rebuild of the reference's ``Optimizer::OptimizeEssentialGraph``
 (reference: Optimizer.cc:829-1118): vertices are Sim3 world->keyframe poses,
 edges are relative Sim3 measurements (loop edges, spanning-tree edges,
 strong-covisibility edges w>=100), error = log(S_ji^-1 * S_jw * S_iw^-1)
@@ -161,7 +161,7 @@ def optimize_pose_graph_cg(
     """Matrix-free essential-graph solve for dataset-scale maps.
 
     optimize_pose_graph assembles the DENSE [N*7, N*7] normal matrix —
-    the right trade below N≈256 vertices (one Cholesky on the MXU, no
+    the right trade below N≈256 vertices (one Cholesky, no
     scatters), but ~441 MB of H blocks at K=1500. This variant solves the
     same Gauss-Newton system ITERATIVELY: the Hessian is only ever
     applied edge-wise (H v = Σ_e J_e^T (J_e v_gather)), with block-Jacobi

@@ -1,6 +1,6 @@
 """Pose-only optimization (motion-only bundle adjustment).
 
-TPU-native rebuild of the reference's ``Optimizer::PoseOptimization``
+JAX rebuild of the reference's ``Optimizer::PoseOptimization``
 (reference: Optimizer.cc:257-481): one SE3 pose, N unary reprojection edges
 against fixed landmarks, 4 rounds x 10 LM iterations, chi-squared
 inlier/outlier reclassification between rounds (outliers may return), Huber
@@ -45,11 +45,11 @@ def _per_obs_chi2(cam, R, t, Xw, obs_uvr, inv_sigma2):
 def _pose_components_T(cam, R, t, XwT, obsT, srow):
     """Residual + pose Jacobian in [row, N] / [row, 6, N] plane layout.
 
-    The [N, 3, 6] layout of reproj_jacobians pads its (3, 6) minors to
-    (8, 128) TPU tiles and lowers the 3x3 @ 3x6 products as [N]-batched
-    MXU micro-dots; keeping N minor makes every step fused VPU plane
-    arithmetic and the normal equations one big-K GEMM (same rewrite as
-    optim.ba._obs_components, ~2.5x on v5e)."""
+    Keeping N minor (instead of the [N, 3, 6] layout of
+    reproj_jacobians, whose tiny 3x3 @ 3x6 products lower as [N]-batched
+    micro-dots) makes every step fused elementwise plane arithmetic and
+    the normal equations one big-K GEMM (same rewrite as
+    optim.ba._obs_components)."""
     x = R[0, 0] * XwT[0] + R[0, 1] * XwT[1] + R[0, 2] * XwT[2] + t[0]
     y = R[1, 0] * XwT[0] + R[1, 1] * XwT[1] + R[1, 2] * XwT[2] + t[1]
     z = R[2, 0] * XwT[0] + R[2, 1] * XwT[1] + R[2, 2] * XwT[2] + t[2]

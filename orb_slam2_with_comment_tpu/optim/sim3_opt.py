@@ -1,6 +1,6 @@
 """Sim(3) relative-pose refinement with bidirectional projection edges.
 
-TPU-native rebuild of the reference's ``Optimizer::OptimizeSim3``
+JAX rebuild of the reference's ``Optimizer::OptimizeSim3``
 (reference: Optimizer.cc:1145-1347): refine the loop-closure Sim3 S_12
 between keyframe 1 and keyframe 2 from matched landmark pairs, with
 bidirectional mono projection residuals —

@@ -1,11 +1,11 @@
 """Distributed bundle adjustment over a device mesh.
 
 The reference has no distributed capability (SURVEY.md §2.5 P7); this is the
-TPU-native scaling story from BASELINE.json: landmarks (and their
+multi-device scaling story from BASELINE.json: landmarks (and their
 observation rows) are sharded across devices on a 1-D mesh axis ``lm``;
 poses are replicated. Each device builds the partial pose-side normal
 equations from its landmark shard, the reduced camera system is combined
-with ``psum`` over ICI, solved (replicated dense Cholesky), and the
+with ``psum`` over the interconnect, solved (replicated dense Cholesky), and the
 landmark back-substitution happens shard-locally — Schur-complement
 reduction of landmark blocks over collectives, exactly the
 "distributed BA via psum/all_gather" north star.
@@ -56,6 +56,15 @@ def _build_step(mesh: Mesh, P_n: int, robust: bool):
         out_specs=(rep, rep, lm_spec, rep),
     )
     def step(cam, R, t, X, obs_pose, obs_uvr, obs_w, pose_fixed, point_valid, lam):
+        # every product at f32: the steps are accepted unchecked, and on a
+        # GPU a TF32 Hessian and Schur complement made them diverge (4
+        # H100s, P=64 L=50000: chi2 850x its start after 5 steps)
+        with jax.default_matmul_precision("float32"):
+            return _step_body(cam, R, t, X, obs_pose, obs_uvr, obs_w,
+                              pose_fixed, point_valid, lam)
+
+    def _step_body(cam, R, t, X, obs_pose, obs_uvr, obs_w, pose_fixed,
+                   point_valid, lam):
         free_pose = ~pose_fixed
         is_stereo = obs_uvr[..., 2] >= 0
         delta_h = jnp.where(is_stereo, HUBER_STEREO, HUBER_MONO)

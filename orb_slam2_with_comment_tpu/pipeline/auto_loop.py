@@ -30,9 +30,7 @@ Reference semantics preserved (SURVEY §2.6 "Loop closing"):
 
 The vocabulary is the packaged offline-trained tree
 (place.vocabulary.load_default_vocabulary — our ORBvoc.txt counterpart),
-kept as HOST numpy arrays so traced code embeds it as constants (dynamic
-gathers on captured device buffers degrade the remote transport;
-matching/search.py table comment).
+kept as HOST numpy arrays so traced code embeds it as constants.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Keyframe database: sparse BoW rows + batched candidate retrieval.
 
-TPU-native rebuild of the reference's KeyFrameDatabase (reference:
+JAX rebuild of the reference's KeyFrameDatabase (reference:
 src/KeyFrameDatabase.cc): the word->keyframe inverted file becomes sparse
 (word-id, tf-idf weight) rows [K_max, T] — memory independent of the
 vocabulary size, so the tree can scale toward the reference's 10^6 leaves

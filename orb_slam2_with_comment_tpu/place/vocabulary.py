@@ -1,6 +1,6 @@
 """Binary BoW vocabulary: hierarchical k-majority tree as flat arrays.
 
-TPU-native rebuild of DBoW2's TemplatedVocabulary (reference:
+JAX rebuild of DBoW2's TemplatedVocabulary (reference:
 Thirdparty/DBoW2/DBoW2/TemplatedVocabulary.h:1218-1259 transform,
 :1127-1194 tf-idf weighting and L1 scoring via ScoringObject): the k^L
 tree becomes three arrays (node descriptors, children index table, leaf
@@ -132,10 +132,7 @@ def load_vocabulary(path: str, as_numpy: bool = False) -> Vocabulary:
 
     as_numpy=True keeps the arrays host-side (numpy): traced code then
     embeds them as compile-time constants. Use this whenever the
-    vocabulary is CLOSED OVER by a jitted program — dynamic gathers on
-    captured device buffers degrade the remote transport (see
-    matching/search.py table comment); gathers on embedded constants or
-    explicit arguments are safe.
+    vocabulary is CLOSED OVER by a jitted program.
     """
     z = np.load(path)
     conv = (lambda a: np.asarray(a)) if as_numpy else jnp.asarray

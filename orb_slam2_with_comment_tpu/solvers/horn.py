@@ -1,6 +1,6 @@
 """Horn's closed-form absolute orientation (batched).
 
-TPU-native rebuild of the reference's Sim3Solver::ComputeSim3 core
+JAX rebuild of the reference's Sim3Solver::ComputeSim3 core
 (reference: Sim3Solver.cc:239-351 — Horn 1987: quaternion from the largest
 eigenvector of the 4x4 N matrix, optional scale): fully batched over
 hypothesis sets so a whole RANSAC round is one eigh call.

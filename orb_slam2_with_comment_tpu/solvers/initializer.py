@@ -1,6 +1,6 @@
 """Monocular two-view initialization: parallel H/F RANSAC + reconstruction.
 
-TPU-native rebuild of the reference's Initializer (reference:
+JAX rebuild of the reference's Initializer (reference:
 Initializer.cc:53-948): 200 RANSAC sets scored for BOTH a homography (DLT)
 and a fundamental matrix (8-point) with symmetric-transfer chi2, model
 choice RH = SH/(SH+SF) > 0.40, then reconstruction — F via the essential

@@ -1,6 +1,6 @@
 """EPnP + RANSAC pose solver for relocalization.
 
-TPU-native rebuild of the reference's PnPsolver (reference:
+JAX rebuild of the reference's PnPsolver (reference:
 PnPsolver.cc:67-352 — EPnP control points + adaptive RANSAC with per-level
 chi2 gating). Hypotheses are vmapped: each RANSAC sample solves the FULL
 EPnP formulation on its 4-point minimal set (reference minSet=4,

@@ -1,6 +1,6 @@
 """Sim3 RANSAC for loop-closure relative pose.
 
-TPU-native rebuild of the reference's Sim3Solver (reference:
+JAX rebuild of the reference's Sim3Solver (reference:
 Sim3Solver.cc:37-220): 3-point Horn hypotheses with two-sided reprojection
 chi2 gating (9.210 * sigma2 per image, :51-52,87-88), recast as a single
 vmapped batch — all max_iters hypotheses solved and scored in one shot

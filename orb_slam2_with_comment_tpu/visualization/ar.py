@@ -1,6 +1,6 @@
 """Augmented-reality demo support (the reference's MonoAR / ViewerAR).
 
-TPU-native rebuild of ``Examples/ROS/ORB_SLAM2/src/AR/ViewerAR.cc``:
+JAX rebuild of ``Examples/ROS/ORB_SLAM2/src/AR/ViewerAR.cc``:
 
 - :func:`fit_plane_ransac` — ``ViewerAR::DetectPlane`` (ViewerAR.cc:392-508)
   as a fully batched RANSAC: every 3-point hypothesis plane is fitted and

@@ -1,11 +1,11 @@
 """Live web viewer: the reference's Pangolin GUI, rebuilt transport-style.
 
-TPU-native counterpart of Viewer/FrameDrawer/MapDrawer's online GUI
+JAX counterpart of Viewer/FrameDrawer/MapDrawer's online GUI
 (reference: src/Viewer.cc:54-169 — menu switches "Follow Camera",
 "Show Points/KeyFrames/Graph", "Localization Mode", "Reset";
 FrameDrawer.cc:38+ current-frame overlay; MapDrawer.cc:44-228 3D map/
 graph/camera rendering). A Pangolin/OpenGL window makes no sense for a
-headless TPU host, so the viewer is a tiny stdlib HTTP server:
+headless accelerator host, so the viewer is a tiny stdlib HTTP server:
 
   GET  /            one-page UI (canvas map render + live frame overlay)
   GET  /state.json  map points, keyframes, covisibility graph, pose, stats
@@ -28,7 +28,7 @@ import numpy as np
 from .frame_drawer import draw_frame
 from .map_drawer import covisibility_edges
 
-_PAGE = """<!doctype html><html><head><title>orb_slam2_tpu viewer</title>
+_PAGE = """<!doctype html><html><head><title>orb_slam2 viewer</title>
 <style>
 body{font-family:sans-serif;background:#111;color:#ddd;margin:12px}
 canvas,img{border:1px solid #444;background:#000}

@@ -8,7 +8,7 @@ autonomous stereo pipeline (extraction at n_features=2000 + row-band
 association + maintenance + loop phase), and reports the anchored
 steady-state rate.
 
-Run (TPU): python scripts/bench_kitti_shape.py
+Run: python scripts/bench_kitti_shape.py
 """
 import os
 import sys

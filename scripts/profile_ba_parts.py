@@ -1,9 +1,9 @@
-"""Break one dense-Schur LM iteration into parts and time each on the TPU.
+"""Break one dense-Schur LM iteration into parts and time each on the device.
 
-The local-BA phases dominate the maintenance cycle (PROFILE.md: 25.8 +
-22.6 ms for 3+2 LM iterations); this isolates where the ~6.5 ms/iter
-goes: Jacobian/residual assembly, Hessian-block einsums, the Schur
-product, the dense [P*6, P*6] solve, or the accept/reject chi2 pass.
+Local BA is a large part of the keyframe-maintenance cycle; this isolates
+where an LM iteration's time goes: Jacobian/residual assembly,
+Hessian-block einsums, the Schur product, the dense [P*6, P*6] solve, or
+the accept/reject chi2 pass.
 
 Run: python scripts/profile_ba_parts.py
 """

@@ -7,7 +7,7 @@ Times on real hardware, steady state (after a map-building pass):
     loop-detect)
   - the tracking core alone
 
-Writes a markdown table to stdout; paste into PROFILE.md.
+Writes a markdown table to stdout.
 """
 import os
 import sys

@@ -13,9 +13,7 @@ mutual-best Hamming matching with TH_LOW, 2 px geometric validation),
 correct matches binned/exact: 0 deg 875/875 (1.00), 6 deg 582/789
 (0.74), 12 deg 703/753 (0.93), 30 deg 489/698 (0.70), 51 deg 517/646
 (0.80), 90 deg 427/625 (0.68) — the bank loses 20-30% of matches at
-mid-bin angles. The exact batched patch sampling
-(brief.descriptors_from_patches_exact) costs the same on TPU
-(~0.04 ms vs ~0.05 ms per 1000 keypoints). DECISION: the extractor
+mid-bin angles. DECISION: the extractor
 uses the EXACT path (reference parity, ORBextractor.cc:108-147); the
 bank remains available for contexts where a fixed angle-bin table is
 preferable.

@@ -127,6 +127,64 @@ class TestSettings:
         np.testing.assert_allclose(ours[..., 1], m2, atol=2e-2)
 
 
+class TestPngReading:
+    """Frame reading without PIL: the PNG header gives the size, and with
+    neither PIL nor the native loader the loaders say what is missing."""
+
+    @staticmethod
+    def _png(tmp_path, h=5, w=7):
+        import struct
+        import zlib
+
+        def chunk(kind, data):
+            body = kind + data
+            return (struct.pack(">I", len(data)) + body
+                    + struct.pack(">I", zlib.crc32(body)))
+
+        raw = b"".join(b"\x00" + bytes(range(w)) for _ in range(h))
+        path = tmp_path / "f.png"
+        path.write_bytes(b"\x89PNG\r\n\x1a\n"
+                         + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                                      0, 0, 0, 0))
+                         + chunk(b"IDAT", zlib.compress(raw))
+                         + chunk(b"IEND", b""))
+        return str(path)
+
+    def test_png_size_from_header(self, tmp_path):
+        assert datasets._png_size(self._png(tmp_path)) == (5, 7)
+        bad = tmp_path / "x.png"
+        bad.write_bytes(b"not a png at all, really not")
+        with pytest.raises(ValueError):
+            datasets._png_size(str(bad))
+
+    @pytest.fixture
+    def no_pil(self, monkeypatch):
+        import builtins
+        real_import = builtins.__import__
+
+        def importer(name, *args, **kw):
+            if name == "PIL" or name.startswith("PIL."):
+                raise ImportError(name)
+            return real_import(name, *args, **kw)
+
+        monkeypatch.setattr(builtins, "__import__", importer)
+
+    def test_native_decode_without_pil(self, tmp_path, no_pil):
+        from orb_slam2_with_comment_tpu.dataio import native_loader
+        if native_loader.get_lib() is None:
+            pytest.skip("native loader needs g++ and libpng")
+        img = datasets._imread_gray(self._png(tmp_path))
+        np.testing.assert_array_equal(
+            img, np.tile(np.arange(7, dtype=np.float32), (5, 1)))
+
+    def test_clear_error_without_pil_or_native(self, tmp_path, no_pil,
+                                                monkeypatch):
+        from orb_slam2_with_comment_tpu.dataio import native_loader
+        monkeypatch.setattr(native_loader, "get_lib", lambda: None)
+        with pytest.raises(RuntimeError, match="Pillow or the native PNG"):
+            datasets._imread_gray(self._png(tmp_path))
+
+
 class TestTumAssociate:
     def test_greedy_pairing(self):
         rgb = [(0.00, "a"), (0.05, "b"), (0.10, "c")]
